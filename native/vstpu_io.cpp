@@ -1,14 +1,14 @@
-// vstpu_io — native IO runtime for tpu-slam.
+// vstpu_io — native IO runtime for visualslam.
 //
 // The reference is pure native C++ throughout (SURVEY.md §2.1 note); in this
-// framework the TPU compute path is JAX/XLA, and the host-side runtime that
+// framework the device compute path is JAX/XLA, and the host-side runtime that
 // feeds it is this library: grayscale image decode (PNG via libpng, JPEG via
 // libjpeg, PGM native), a multithreaded lookahead prefetcher that decodes
 // frames ahead of the SLAM loop (double buffering between disk and device),
 // and the reference-compatible descriptor serialization
 // (featureDescriptors.dat, Diff_of_Gauss.cpp:838-863).
 //
-// C ABI for ctypes binding (visualslam_tpu/io/native.py). Build: native/build.sh
+// C ABI for ctypes binding (visualslam/io/native.py). Build: native/build.sh
 
 #include <atomic>
 #include <condition_variable>

@@ -5,14 +5,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.backend.ba import (
+from visualslam.backend.ba import (
     BAProblem,
     _residuals_jacobians,
     robust_cost,
     run_ba_jit,
 )
-from visualslam_tpu.geometry import se3
-from visualslam_tpu.utils.config import BAConfig
+from visualslam.geometry import se3
+from visualslam.utils.config import BAConfig
 
 
 def make_ba_problem(rng, n_cams=6, n_lms=300, pose_noise=0.02,
@@ -171,7 +171,7 @@ def test_ba_matrix_free_matches_dense(rng):
 def test_ba_matrix_free_step_matches_dense_step(rng):
     """One matrix-free GN step equals one dense-Schur step (same linear
     system, different solve path) to CG tolerance."""
-    from visualslam_tpu.backend.ba import ba_step
+    from visualslam.backend.ba import ba_step
 
     p, *_ = make_ba_problem(rng, n_cams=4, n_lms=120)
     lam = jnp.asarray(1e-3)

@@ -2,11 +2,12 @@
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
 
-from visualslam_tpu.cli import main
+from visualslam.cli import main
 
 
 def test_cli_detect_writes_outputs(tmp_path, monkeypatch):
@@ -15,7 +16,7 @@ def test_cli_detect_writes_outputs(tmp_path, monkeypatch):
           "--frontend", "harris", "--out", "blox"])
     assert os.path.exists("blox_keypoints.png")
     assert os.path.exists("blox_descriptors.dat")
-    from visualslam_tpu.io.serialization import load_descriptors_dat
+    from visualslam.io.serialization import load_descriptors_dat
 
     d = load_descriptors_dat("blox_descriptors.dat")
     assert d.shape[0] > 10
@@ -23,9 +24,14 @@ def test_cli_detect_writes_outputs(tmp_path, monkeypatch):
 
 def test_cli_run_and_eval_roundtrip(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    # without --plot, `run` needs no Pillow
+    for mod in [m for m in sys.modules if m == "PIL" or m.startswith("PIL.")]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setitem(sys.modules, "PIL", None)
     main(["run", "--synthetic", "10", "--batch", "4",
           "--out", "est.txt", "--metrics", "m.jsonl"])
     assert os.path.exists("est.txt")
+    assert not os.path.exists("trajectory.png")
     rows = [json.loads(l) for l in open("m.jsonl")]
     assert len(rows) == 10
     # eval against itself -> ~zero error
@@ -41,8 +47,8 @@ def test_cli_run_and_eval_roundtrip(tmp_path, monkeypatch):
 
 
 def test_viz_outputs(tmp_path, rng):
-    from visualslam_tpu.models.types import Features, Keypoints
-    from visualslam_tpu.slam.viz import draw_keypoints, draw_trajectory
+    from visualslam.models.types import Features, Keypoints
+    from visualslam.slam.viz import draw_keypoints, draw_trajectory
     import jax.numpy as jnp
 
     img = rng.random((64, 64)).astype(np.float32)
@@ -63,7 +69,7 @@ def test_viz_outputs(tmp_path, rng):
 
 
 def test_umeyama_known_transform(rng):
-    from visualslam_tpu.slam.evaluation import umeyama_alignment
+    from visualslam.slam.evaluation import umeyama_alignment
 
     src = rng.standard_normal((40, 3))
     from scipy.spatial.transform import Rotation
@@ -86,3 +92,12 @@ def test_cli_run_pipelined(tmp_path, monkeypatch):
     assert os.path.exists("est_p.txt")
     rows = [json.loads(l) for l in open("mp.jsonl")]
     assert len(rows) == 10
+
+
+def test_cli_run_plot_option(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    main(["run", "--synthetic", "6", "--batch", "3", "--out", "est.txt",
+          "--plot", "traj.png", "--no-prewarm"])
+    from PIL import Image
+
+    assert Image.open("traj.png").size[0] > 0

@@ -2,18 +2,19 @@
 match the single-device solver (SURVEY.md §4 implication (4))."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.backend.ba import run_ba_jit
-from visualslam_tpu.parallel.dist_ba import (
+from visualslam.backend.ba import run_ba_jit
+from visualslam.parallel.dist_ba import (
     run_ba_sharded,
     shard_problem,
     unshard_points,
 )
-from visualslam_tpu.parallel.mesh import make_mesh
-from visualslam_tpu.utils.config import BAConfig
+from visualslam.parallel.mesh import make_mesh
+from visualslam.utils.config import BAConfig
 
 from test_ba import make_ba_problem
 
@@ -64,7 +65,7 @@ def test_balanced_partition_shrinks_padding(rng):
     """Skewed observation counts: the block partition pays max-shard
     padding; the balanced (LPT) partition equalizes per-shard loads."""
     import jax.numpy as jnp
-    from visualslam_tpu.backend.ba import BAProblem
+    from visualslam.backend.ba import BAProblem
 
     n_cams, L, n_shards = 4, 64, 8
     # landmark k gets k%8==0 -> 16 observations, else 1 (heavy head, and the
@@ -117,8 +118,8 @@ def test_ring_allreduce_matches_psum(rng):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from visualslam_tpu.parallel.collectives import ring_allreduce
-    from visualslam_tpu.parallel.mesh import make_mesh
+    from visualslam.parallel.collectives import ring_allreduce
+    from visualslam.parallel.mesh import make_mesh
 
     mesh = make_mesh(8, axis="r")
     x = rng.standard_normal((8, 37)).astype(np.float32)
@@ -145,3 +146,35 @@ def test_sharded_ba_ring_reduce(rng):
     np.testing.assert_allclose(np.asarray(r_ring.R), np.asarray(r_psum.R),
                                atol=1e-4)
     assert float(r_ring.cost) < float(r_ring.initial_cost) * 1e-2
+
+
+@pytest.mark.parametrize("layout", ["landmark", "trajectory"])
+def test_sharded_ba_lowers_matmuls_in_float32(rng, monkeypatch, layout):
+    """Both sharded solvers trace their matmuls at HIGHEST precision, as
+    the single-device solver does: at DEFAULT a GPU runs them in TF32,
+    which left the landmark-sharded solve at a worse optimum on an H100."""
+    from visualslam.parallel.traj_ba import (run_ba_traj_sharded,
+                                             shard_problem_trajectory)
+
+    texts = []
+    real_jit = jax.jit
+
+    def spy(fn, *a, **kw):
+        compiled = real_jit(fn, *a, **kw)
+
+        def call(*args):
+            texts.append(compiled.lower(*args).as_text())
+            return compiled(*args)
+        return call
+
+    p, *_ = make_ba_problem(rng, n_cams=4, n_lms=64)
+    cfg = BAConfig(iters=1)
+    mesh = make_mesh(4, axis="shard")
+    monkeypatch.setattr(jax, "jit", spy)
+    if layout == "landmark":
+        run_ba_sharded(shard_problem(p, 4), cfg, mesh)
+    else:
+        run_ba_traj_sharded(shard_problem_trajectory(p, 4), cfg, mesh)
+    hlo = "\n".join(texts)
+    assert "dot_general" in hlo
+    assert "precision = [DEFAULT" not in hlo

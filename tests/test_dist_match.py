@@ -6,8 +6,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from visualslam_tpu.parallel.dist_match import shard_descriptors, sharded_2nn
-from visualslam_tpu.parallel.mesh import make_mesh
+from visualslam.parallel.dist_match import shard_descriptors, sharded_2nn
+from visualslam.parallel.mesh import make_mesh
 
 
 def _full_2nn(qa, kb, vb):

@@ -7,11 +7,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.geometry import se3
-from visualslam_tpu.geometry.epipolar import sampson_error
-from visualslam_tpu.geometry.fivepoint import five_point
-from visualslam_tpu.geometry.ransac import ransac_essential
-from visualslam_tpu.utils.config import RansacConfig
+from visualslam.geometry import se3
+from visualslam.geometry.epipolar import sampson_error
+from visualslam.geometry.fivepoint import five_point
+from visualslam.geometry.ransac import ransac_essential
+from visualslam.utils.config import RansacConfig
 
 
 def _scene(rng, n=200, outlier_frac=0.4, noise=5e-4):

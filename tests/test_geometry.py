@@ -7,15 +7,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.geometry import se3
-from visualslam_tpu.geometry.epipolar import (
+from visualslam.geometry import se3
+from visualslam.geometry.epipolar import (
     eight_point,
     recover_pose,
     sampson_error,
     triangulate,
 )
-from visualslam_tpu.geometry.ransac import estimate_relative_pose
-from visualslam_tpu.utils.config import RansacConfig
+from visualslam.geometry.ransac import estimate_relative_pose
+from visualslam.utils.config import RansacConfig
 
 
 def rot_err_deg(Ra, Rb):
@@ -134,7 +134,7 @@ def test_ransac_respects_validity(rng):
     x2n = np.array(x2)
     x2n[60:] = rng.uniform(-1, 1, (40, 2))
     cfg = RansacConfig(num_hypotheses=128, inlier_threshold=1e-6)
-    E, inl, n = __import__("visualslam_tpu.geometry.ransac",
+    E, inl, n = __import__("visualslam.geometry.ransac",
                            fromlist=["ransac_essential"]).ransac_essential(
         x1, jnp.asarray(x2n, jnp.float32), jnp.asarray(valid), cfg)
     inl = np.asarray(inl)

@@ -4,8 +4,8 @@ least not hurt) the full trajectory."""
 
 import numpy as np
 
-from visualslam_tpu.slam.evaluation import ate_rmse, centers_from_poses
-from visualslam_tpu.slam.global_ba import build_global_problem, run_global_ba
+from visualslam.slam.evaluation import ate_rmse, centers_from_poses
+from visualslam.slam.global_ba import build_global_problem, run_global_ba
 
 from test_tracker import CFG, run_sequence
 
@@ -45,7 +45,7 @@ def test_global_ba_sharded_matches_single(rng):
     tracker, gt = run_sequence(rng, n_frames=40)
     res1 = tracker.global_ba()
 
-    from visualslam_tpu.parallel.mesh import make_mesh
+    from visualslam.parallel.mesh import make_mesh
 
     tracker2, _ = run_sequence(np.random.default_rng(0), n_frames=40)
     mesh = make_mesh(4, axis="shard")
@@ -63,7 +63,7 @@ def test_global_ba_sharded_matches_single(rng):
 def test_uid_validation_rejects_recycled_slots(rng):
     """An observation recorded before its landmark slot was recycled must
     not survive into BA arrays or the archive."""
-    from visualslam_tpu.slam.map_state import SlamMap
+    from visualslam.slam.map_state import SlamMap
 
     m = SlamMap(window=3, max_landmarks=8, feat_capacity=16)
     s0, _ = m.allocate_keyframe()

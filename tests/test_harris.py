@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.models.harris import detect_harris, detect_harris_jit
-from visualslam_tpu.utils.config import HarrisConfig
+from visualslam.models.harris import detect_harris, detect_harris_jit
+from visualslam.utils.config import HarrisConfig
 
 
 def checkerboard(n=96, sq=12):

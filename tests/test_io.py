@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from visualslam_tpu.io.kitti import SyntheticSequence
-from visualslam_tpu.io.serialization import (
+from visualslam.io.kitti import SyntheticSequence
+from visualslam.io.serialization import (
     load_descriptors_dat,
     load_kitti_poses,
     save_descriptors_dat,
@@ -64,8 +64,8 @@ def test_checkpoint_roundtrip(tmp_path, rng):
     sys.path.insert(0, os.path.dirname(__file__))
     from test_tracker import CFG, INTR, SyntheticScene
 
-    from visualslam_tpu.slam.checkpoint import load_checkpoint, save_checkpoint
-    from visualslam_tpu.slam.tracker import Tracker
+    from visualslam.slam.checkpoint import load_checkpoint, save_checkpoint
+    from visualslam.slam.tracker import Tracker
 
     scene = SyntheticScene(rng)
     t1 = Tracker(CFG, INTR)
@@ -111,11 +111,11 @@ def test_kitti_loader_layout(tmp_path, rng):
     posedir.mkdir()
     poses = np.tile(np.eye(3, 4), (4, 1, 1))
     poses[:, 2, 3] = np.arange(4) * 0.8
-    from visualslam_tpu.io.serialization import save_kitti_poses
+    from visualslam.io.serialization import save_kitti_poses
 
     save_kitti_poses(str(posedir / "07.txt"), poses)
 
-    from visualslam_tpu.io.kitti import KittiOdometrySequence
+    from visualslam.io.kitti import KittiOdometrySequence
 
     seq = KittiOdometrySequence(str(tmp_path), "07")
     assert len(seq) == 4
@@ -130,3 +130,35 @@ def test_kitti_loader_layout(tmp_path, rng):
     assert len(frames) == 4
     assert frames[0].shape == (H, W)
     np.testing.assert_allclose(frames[1], seq.frame(1), atol=1e-6)
+
+
+def test_checkpoint_keeps_loop_corrections(tmp_path):
+    """A resumed map carries the pose-graph-corrected keyframe poses, the
+    closure count and the closure cooldown, so global BA after a resume
+    starts from the same problem as without it."""
+    from visualslam.slam.checkpoint import load_checkpoint, save_checkpoint
+    from visualslam.slam.tracker import Tracker
+    from visualslam.utils.config import DEFAULT_CONFIG
+
+    intr = np.asarray([300.0, 300.0, 160.0, 120.0], np.float32)
+    t = Tracker(DEFAULT_CONFIG, intr)
+    rng = np.random.default_rng(3)
+    for fid in (0, 5, 9):
+        t.loop_closer.add_keyframe_light(fid, np.eye(3, dtype=np.float32),
+                                         rng.normal(size=3).astype(np.float32))
+    corr = [(np.eye(3, dtype=np.float32), rng.normal(size=3).astype(
+        np.float32)) for _ in range(3)]
+    t.loop_closer.corrected = corr
+    t.num_loop_closures = 2
+    t._loop_cooldown_until = 7
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, t)
+
+    t2 = Tracker(DEFAULT_CONFIG, intr)
+    load_checkpoint(path, t2)
+    assert t2.num_loop_closures == 2 and t2._loop_cooldown_until == 7
+    got = t2.loop_corrections()
+    assert sorted(got) == [0, 5, 9]
+    for fid, (R, tt) in zip((0, 5, 9), corr):
+        np.testing.assert_array_equal(got[fid][0], R)
+        np.testing.assert_array_equal(got[fid][1], tt)

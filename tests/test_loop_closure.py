@@ -6,9 +6,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from visualslam_tpu.models.types import Features, Keypoints
-from visualslam_tpu.slam.tracker import Tracker
-from visualslam_tpu.utils.config import DEFAULT_CONFIG
+from visualslam.models.types import Features, Keypoints
+from visualslam.slam.tracker import Tracker
+from visualslam.utils.config import DEFAULT_CONFIG
 
 INTR = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
 W, H = 640, 480
@@ -102,7 +102,7 @@ def build_scale_drift_db(rng, use_sim3, n_kf=14, drift_total=1.5,
     the true geometry — projection is invariant to scaling both X and t, so
     this is exactly what a scale-drifting monocular pipeline would store.
     The last keyframe revisits the first view."""
-    from visualslam_tpu.slam.loop_closure import LoopCloser
+    from visualslam.slam.loop_closure import LoopCloser
 
     X = rng.uniform([-15, -8, 10], [15, 8, 45], (n_points, 3))
     desc = rng.standard_normal((n_points, 64)).astype(np.float32)
@@ -195,7 +195,7 @@ def test_se3_loop_cannot_fix_scale_drift(rng):
 def test_retrieval_gate_rejects_unrelated_scenes(rng):
     """Keyframes seeing disjoint landmark sets must not pass the
     global-descriptor gate (no loop candidates)."""
-    from visualslam_tpu.slam.loop_closure import LoopCloser
+    from visualslam.slam.loop_closure import LoopCloser
 
     lc = LoopCloser(INTR, CFG.match, CFG.pose_graph, sub_keypoints=64,
                     cosine_threshold=0.7, exclude_recent=2)
@@ -218,7 +218,7 @@ def test_retrieval_gate_rejects_unrelated_scenes(rng):
 def test_verification_rejects_without_landmarks(rng):
     """Even with identical appearance, verification needs 3D landmark
     support — keyframes with no associations cannot produce a loop edge."""
-    from visualslam_tpu.slam.loop_closure import LoopCloser
+    from visualslam.slam.loop_closure import LoopCloser
 
     lc = LoopCloser(INTR, CFG.match, CFG.pose_graph, sub_keypoints=64,
                     cosine_threshold=0.5, exclude_recent=1, min_inliers=10)
@@ -242,9 +242,9 @@ def test_pose_graph_400_keyframes_out_and_back(rng):
     solver) must close the loop and correct accumulated drift."""
     import jax.numpy as jnp
 
-    from visualslam_tpu.geometry import se3
-    from visualslam_tpu.slam.loop_closure import LoopCloser, LoopEdge
-    from visualslam_tpu.utils.config import MatchConfig, PoseGraphConfig
+    from visualslam.geometry import se3
+    from visualslam.slam.loop_closure import LoopCloser, LoopEdge
+    from visualslam.utils.config import MatchConfig, PoseGraphConfig
 
     n = 400
     pg_cfg = PoseGraphConfig(max_nodes=256, max_edges=1024, iters=15,
@@ -271,7 +271,7 @@ def test_pose_graph_400_keyframes_out_and_back(rng):
         R_dr.append(Rd.copy()); t_dr.append(-Rd @ cd)
 
     # register drifted keyframes directly (entries only need poses here)
-    from visualslam_tpu.slam.loop_closure import KeyframeEntry
+    from visualslam.slam.loop_closure import KeyframeEntry
 
     for k in range(n):
         lc.entries.append(KeyframeEntry(

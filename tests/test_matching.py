@@ -1,17 +1,18 @@
 """Matching tests: distance matrices vs NumPy goldens, ratio/mutual logic."""
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
-from visualslam_tpu.models.matching import match_features
-from visualslam_tpu.models.types import Features, Keypoints
-from visualslam_tpu.ops.distance import (
+from visualslam.models.matching import match_features
+from visualslam.models.types import Features, Keypoints
+from visualslam.ops.distance import (
     hamming_distance_matrix,
     l2sq_distance_matrix,
     unpack_bits,
 )
-from visualslam_tpu.utils.config import MatchConfig
+from visualslam.utils.config import MatchConfig
 
 
 def make_features(desc, valid=None):
@@ -97,10 +98,9 @@ def test_ratio_test_rejects_ambiguous():
 
 def test_match_two_nn_semantics_vs_bruteforce(rng):
     """The matcher's best/second-best/nn come from three reduction passes
-    (min, argmin, masked second-min) — NOT lax.top_k, whose k>1 form
-    lowers to a full per-row sort on TPU (~20 ms at [2048, 2048]). This
-    pins the reduction-pass formulation to exact brute-force 2-NN
-    semantics so the sort can never silently come back."""
+    (min, argmin, masked second-min) rather than a per-row top-k sort.
+    This pins the reduction-pass formulation to exact brute-force 2-NN
+    semantics."""
     a = rng.standard_normal((96, 32)).astype(np.float32)
     b = rng.standard_normal((96, 32)).astype(np.float32)
     valid_a = rng.random(96) > 0.2
@@ -125,3 +125,37 @@ def test_match_two_nn_semantics_vs_bruteforce(rng):
                                       np.asarray(m.valid)) if v}
     want_pairs = {(int(i), int(nn[i])) for i in np.nonzero(want)[0]}
     assert got_pairs == want_pairs
+
+
+@pytest.mark.parametrize("ka,kb,dim", [(37, 53, 128), (130, 61, 128),
+                                       (255, 257, 64)])
+def test_match_2nn_odd_sizes_vs_bruteforce(rng, ka, kb, dim):
+    """Ratio + mutual 2-NN matching against brute force at capacities that
+    line up with no tile size, unit-norm descriptors as SIFT emits them."""
+    a = rng.standard_normal((ka, dim)).astype(np.float32)
+    b = rng.standard_normal((kb, dim)).astype(np.float32)
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    b[: kb // 2] = a[rng.permutation(ka)[: kb // 2]] + 0.01 * \
+        rng.standard_normal((kb // 2, dim)).astype(np.float32)
+    valid_a = rng.random(ka) > 0.1
+    valid_b = rng.random(kb) > 0.1
+    cfg = MatchConfig(max_matches=ka, ratio=0.8, mutual=True)
+    m = match_features(make_features(a, valid_a),
+                       make_features(b, valid_b), cfg)
+
+    d = ((a[:, None].astype(np.float64) - b[None]) ** 2).sum(-1)
+    d[~valid_a] = np.inf
+    d[:, ~valid_b] = np.inf
+    nn = d.argmin(1)
+    part = np.sort(d, axis=1)
+    want = (valid_a & np.isfinite(part[:, 0])
+            & (part[:, 0] < cfg.ratio ** 2 * part[:, 1])
+            & (d.argmin(0)[nn] == np.arange(ka)))
+    got = {(int(i), int(j)) for i, j, v in zip(
+        np.asarray(m.idx_a), np.asarray(m.idx_b), np.asarray(m.valid)) if v}
+    assert got == {(int(i), int(nn[i])) for i in np.nonzero(want)[0]}
+    assert len(got) > kb // 4
+    # best first
+    dist = np.asarray(m.distance)[np.asarray(m.valid)]
+    assert np.all(np.diff(dist) >= 0)

@@ -20,6 +20,8 @@ import time
 import numpy as np
 import pytest
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 WORKER = r"""
 import os, sys, time
 import numpy as np
@@ -30,7 +32,7 @@ addr, pid, steps, ckpt, fault_step = (
     sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
     int(sys.argv[5]))
 
-from visualslam_tpu.parallel import multihost
+from visualslam.parallel import multihost
 
 started = multihost.initialize(addr, num_processes=2, process_id=pid)
 assert started, "multi-process init did not start"
@@ -72,7 +74,7 @@ def _spawn(pid, addr, steps, ckpt, fault_step, tmp_path):
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)          # conftest's 8 virtual devices would
     env["JAX_PLATFORMS"] = "cpu"        # break the 1-device-per-process pmap
-    env["PYTHONPATH"] = "/root/repo" + (
+    env["PYTHONPATH"] = REPO + (
         os.pathsep + env["PYTHONPATH"] if "PYTHONPATH" in env else "")
     script = tmp_path / "worker.py"
     script.write_text(WORKER)
@@ -80,7 +82,7 @@ def _spawn(pid, addr, steps, ckpt, fault_step, tmp_path):
         [sys.executable, str(script), addr, str(pid), str(steps),
          str(ckpt), str(fault_step)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd="/root/repo")
+        env=env, cwd=REPO)
 
 
 def _progress(ckpt):
@@ -93,7 +95,7 @@ def _progress(ckpt):
 
 
 def test_multihost_initialize_noop_paths(monkeypatch):
-    from visualslam_tpu.parallel import multihost
+    from visualslam.parallel import multihost
 
     monkeypatch.delenv("SLAM_COORDINATOR", raising=False)
     assert multihost.initialize() is False          # no coordinator set

@@ -4,7 +4,7 @@ toolchain can't build it)."""
 import numpy as np
 import pytest
 
-from visualslam_tpu.io import native
+from visualslam.io import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library not built")
@@ -13,7 +13,7 @@ IMAGES = "/root/reference/KeyPointDetection/images"
 
 
 def test_decode_png_matches_pil():
-    from visualslam_tpu.utils.images import load_gray
+    from visualslam.utils.images import load_gray
 
     got = native.decode_gray(f"{IMAGES}/chessboard.png")
     want = load_gray(f"{IMAGES}/chessboard.png")
@@ -27,7 +27,7 @@ def test_decode_jpeg_sane():
     assert 0.0 <= img.min() and img.max() <= 1.0
     # libjpeg and PIL use slightly different gray conversions; just require
     # strong agreement, not bit-exactness
-    from visualslam_tpu.utils.images import load_gray
+    from visualslam.utils.images import load_gray
 
     pil = load_gray(f"{IMAGES}/home.jpg")
     assert np.abs(img - pil).mean() < 0.02
@@ -57,7 +57,7 @@ def test_prefetcher_order_and_content():
 
 def test_descriptor_dat_cross_language(tmp_path, rng):
     """C++ writer <-> Python reader and vice versa."""
-    from visualslam_tpu.io.serialization import (
+    from visualslam.io.serialization import (
         load_descriptors_dat,
         save_descriptors_dat,
     )

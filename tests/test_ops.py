@@ -7,11 +7,11 @@ import scipy.ndimage as ndi
 
 import jax.numpy as jnp
 
-from visualslam_tpu.ops.blur import blur_stack, box_filter, gaussian_blur, gaussian_taps
-from visualslam_tpu.ops.gradients import central_diff, magnitude_orientation
-from visualslam_tpu.ops.harris import harris_response
-from visualslam_tpu.ops.nms import window_peaks
-from visualslam_tpu.ops.resize import downsample2x_nearest, upsample2x_linear
+from visualslam.ops.blur import blur_stack, box_filter, gaussian_blur, gaussian_taps
+from visualslam.ops.gradients import central_diff, magnitude_orientation
+from visualslam.ops.harris import harris_response
+from visualslam.ops.nms import window_peaks
+from visualslam.ops.resize import downsample2x_nearest, upsample2x_linear
 
 
 def test_gaussian_taps_normalized():
@@ -37,6 +37,32 @@ def test_blur_stack_matches_individual(rng):
     for i, s in enumerate(sigmas):
         want = ndi.gaussian_filter(img, s, mode="reflect", truncate=4.0)
         np.testing.assert_allclose(stack[i], want, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["matmul", "conv", "incremental"])
+@pytest.mark.parametrize("shape", [(37, 53), (61, 130)])
+def test_pyramid_blur_modes_match_scipy(rng, mode, shape):
+    """Every blur_mode builds the octave's levels at their absolute sigmas
+    (scipy's reflect border), at sizes that line up with no tile."""
+    from visualslam.models.pyramid import build_pyramid, level_sigmas
+    from visualslam.utils.config import PyramidConfig
+
+    img = rng.random(shape, dtype=np.float32)
+    pc = PyramidConfig(num_octaves=1, blur_mode=mode, initial_upsample=False)
+    got = np.asarray(build_pyramid(jnp.asarray(img), pc).gauss[0])
+    want = np.stack([ndi.gaussian_filter(img.astype(np.float64), s,
+                                         mode="reflect", truncate=4.0)
+                     for s in level_sigmas(pc)])
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_pyramid_rejects_unknown_blur_mode(rng):
+    from visualslam.models.pyramid import build_pyramid
+    from visualslam.utils.config import PyramidConfig
+
+    with pytest.raises(ValueError, match="blur_mode"):
+        build_pyramid(jnp.asarray(rng.random((32, 32), dtype=np.float32)),
+                      PyramidConfig(num_octaves=1, blur_mode="pallas"))
 
 
 def test_box_filter_is_window_sum(rng):
@@ -104,7 +130,7 @@ def test_resize_roundtrip(rng):
 
 
 def test_rotate_points_quarter_turn():
-    from visualslam_tpu.ops.patches import rotate_points
+    from visualslam.ops.patches import rotate_points
 
     pts = jnp.asarray([[0.0, 10.0], [0.0, -10.0]])  # (y, x) about origin
     out = np.asarray(rotate_points(pts, 90.0, (0.0, 0.0)))
@@ -120,9 +146,9 @@ def test_rotate_points_quarter_turn():
 def test_pyramid_montage(tmp_path, rng):
     import os
 
-    from visualslam_tpu.models.pyramid import build_pyramid
-    from visualslam_tpu.slam.viz import save_pyramid_montage
-    from visualslam_tpu.utils.config import PyramidConfig
+    from visualslam.models.pyramid import build_pyramid
+    from visualslam.slam.viz import save_pyramid_montage
+    from visualslam.utils.config import PyramidConfig
 
     img = jnp.asarray(rng.random((64, 64), dtype=np.float32))
     ss = build_pyramid(img, PyramidConfig(num_octaves=2))
@@ -132,7 +158,7 @@ def test_pyramid_montage(tmp_path, rng):
 
 
 def test_rotate_image_quarter_turns(rng):
-    from visualslam_tpu.ops.patches import rotate_image
+    from visualslam.ops.patches import rotate_image
 
     img = rng.random((32, 32)).astype(np.float32)
     r90 = np.asarray(rotate_image(jnp.asarray(img), 90.0))
@@ -147,10 +173,10 @@ def test_rotate_image_quarter_turns(rng):
 
 
 def test_sample_bilinear_patches_matches_scattered(rng):
-    """The patch-crop + tent-matmul sampler (TPU-fast path) must agree
+    """The patch-crop + tent-matmul sampler (the XLA form) must agree
     exactly with the scattered 4-corner bilinear gather for interior
     keypoints (the descriptor path's regime)."""
-    from visualslam_tpu.ops.patches import (
+    from visualslam.ops.patches import (
         rotated_grid,
         sample_bilinear_patches,
         sample_bilinear_stack,
@@ -180,7 +206,7 @@ def test_sample_bilinear_patches_level_smaller_than_patch(rng):
     images) must still compile: the crop shrinks to the level per axis and
     in-level samples stay exact bilinear (regression: the 64x96 multichip
     dryrun failed with a gather-slice-size error at patch=28 > W=16)."""
-    from visualslam_tpu.ops.patches import (
+    from visualslam.ops.patches import (
         rotated_grid,
         sample_bilinear_patches,
         sample_bilinear_stack,

@@ -6,10 +6,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from visualslam_tpu.models.matching import match_features
-from visualslam_tpu.models.orb import detect_and_describe_orb_jit
-from visualslam_tpu.ops.fast import fast_score_map
-from visualslam_tpu.utils.config import MatchConfig, OrbConfig
+from visualslam.models.matching import match_features
+from visualslam.models.orb import detect_and_describe_orb_jit
+from visualslam.ops.fast import fast_score_map
+from visualslam.utils.config import MatchConfig, OrbConfig
 
 ORB = OrbConfig(max_keypoints=512, num_levels=4)
 HAMMING = MatchConfig(metric="hamming", ratio=0.85, max_matches=512)

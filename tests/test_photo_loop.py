@@ -6,10 +6,10 @@ previously the only asserted closure lived on a synthetic splat world."""
 import numpy as np
 import pytest
 
-from visualslam_tpu.io.photo_seq import PhotoSequence
-from visualslam_tpu.slam.evaluation import ate_rmse, centers_from_poses
-from visualslam_tpu.slam.tracker import Tracker
-from visualslam_tpu.utils.config import FAST_CONFIG
+from visualslam.io.photo_seq import PhotoSequence
+from visualslam.slam.evaluation import ate_rmse, centers_from_poses
+from visualslam.slam.tracker import Tracker
+from visualslam.utils.config import FAST_CONFIG
 
 N = 100
 

@@ -5,13 +5,13 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from visualslam_tpu.backend.pose_graph import (
+from visualslam.backend.pose_graph import (
     PoseGraph,
     optimize_pose_graph_jit,
     pose_graph_cost,
 )
-from visualslam_tpu.geometry import se3
-from visualslam_tpu.utils.config import PoseGraphConfig
+from visualslam.geometry import se3
+from visualslam.utils.config import PoseGraphConfig
 
 
 def circle_trajectory(n=12, radius=5.0):

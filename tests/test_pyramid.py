@@ -6,13 +6,13 @@ import scipy.ndimage as ndi
 
 import jax.numpy as jnp
 
-from visualslam_tpu.models.pyramid import (
+from visualslam.models.pyramid import (
     auto_num_octaves,
     build_pyramid,
     build_pyramid_jit,
     level_sigmas,
 )
-from visualslam_tpu.utils.config import PyramidConfig
+from visualslam.utils.config import PyramidConfig
 
 
 def golden_pyramid(img: np.ndarray, cfg: PyramidConfig):

@@ -16,10 +16,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.frontend import detect_and_describe_jit
-from visualslam_tpu.geometry import se3
-from visualslam_tpu.slam.two_view import two_view_from_features
-from visualslam_tpu.utils.config import DEFAULT_CONFIG, FAST_CONFIG
+from visualslam.frontend import detect_and_describe_jit
+from visualslam.geometry import se3
+from visualslam.slam.two_view import two_view_from_features
+from visualslam.utils.config import DEFAULT_CONFIG, FAST_CONFIG
 
 cv2 = pytest.importorskip("cv2")
 
@@ -129,9 +129,9 @@ def test_real_texture_tracked_sequence(home):
 
     Calibration run (CPU backend): ATE 0.027, RPE 0.005 m / 0.19 deg,
     8 keyframes, mean inliers 99, min 66."""
-    from visualslam_tpu.slam.evaluation import (
+    from visualslam.slam.evaluation import (
         ate_rmse, centers_from_poses, rpe)
-    from visualslam_tpu.slam.tracker import Tracker
+    from visualslam.slam.tracker import Tracker
 
     img = home
     h, w = img.shape

@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from visualslam_tpu.models.sift import detect_and_describe_sift_jit
-from visualslam_tpu.utils.config import PyramidConfig, SiftConfig
+from visualslam.models.sift import detect_and_describe_sift_jit
+from visualslam.utils.config import PyramidConfig, SiftConfig
 
 PYR = PyramidConfig(num_octaves=3)
 SIFT = SiftConfig(max_keypoints_per_octave=256, max_keypoints=512)

@@ -10,13 +10,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.backend.pose_graph import (
+from visualslam.backend.pose_graph import (
     Sim3Graph,
     optimize_sim3_graph_jit,
     sim3_graph_cost,
 )
-from visualslam_tpu.geometry import se3, sim3
-from visualslam_tpu.utils.config import PoseGraphConfig
+from visualslam.geometry import se3, sim3
+from visualslam.utils.config import PoseGraphConfig
 
 
 # ---------------------------------------------------------------------------

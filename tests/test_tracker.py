@@ -6,11 +6,11 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from visualslam_tpu.geometry import se3
-from visualslam_tpu.models.types import Features, Keypoints
-from visualslam_tpu.slam.evaluation import ate_rmse, centers_from_poses, rpe
-from visualslam_tpu.slam.tracker import Tracker
-from visualslam_tpu.utils.config import DEFAULT_CONFIG
+from visualslam.geometry import se3
+from visualslam.models.types import Features, Keypoints
+from visualslam.slam.evaluation import ate_rmse, centers_from_poses, rpe
+from visualslam.slam.tracker import Tracker
+from visualslam.utils.config import DEFAULT_CONFIG
 
 INTR = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
 W, H = 640, 480
@@ -146,7 +146,7 @@ def test_process_batch_equals_sequential(rng):
     floats differ at the 1e-7 level). That epsilon can flip a near-tied
     ratio-test match, so downstream poses are compared statistically (same
     trajectory to within a small fraction of its length), not bitwise."""
-    from visualslam_tpu.io.kitti import SyntheticSequence
+    from visualslam.io.kitti import SyntheticSequence
 
     seq = SyntheticSequence(num_frames=8, h=120, w=160, n_dots=400)
     info = seq.info()
@@ -194,7 +194,7 @@ def test_orb_frontend_metric_autoswitch():
 
 
 def test_loop_closer_unpacks_orb_bits(rng):
-    from visualslam_tpu.slam.loop_closure import LoopCloser
+    from visualslam.slam.loop_closure import LoopCloser
 
     lc = LoopCloser(INTR, CFG.match.replace(metric="hamming"),
                     CFG.pose_graph, sub_keypoints=32)
@@ -250,8 +250,8 @@ def test_pipelined_equals_sequential_batched():
     bit-identical trajectories to sequential per-frame processing: the
     same jitted frontend runs on the same inputs and features are consumed
     in the same order — only dispatch timing differs."""
-    from visualslam_tpu.io.kitti import SyntheticSequence
-    from visualslam_tpu.parallel.pipeline import pipelined_process
+    from visualslam.io.kitti import SyntheticSequence
+    from visualslam.parallel.pipeline import pipelined_process
 
     seq = SyntheticSequence(num_frames=8, h=120, w=160, n_dots=400)
     info = seq.info()
@@ -280,7 +280,7 @@ def test_process_stream_equals_process_batch():
     bit-identical results to synchronous chunk-by-chunk process_batch:
     the same engine program runs on the same inputs in the same order —
     only the harvest timing differs (telemetry consumed one batch late)."""
-    from visualslam_tpu.io.kitti import SyntheticSequence
+    from visualslam.io.kitti import SyntheticSequence
 
     seq = SyntheticSequence(num_frames=12, h=120, w=160, n_dots=400)
     info = seq.info()
@@ -321,7 +321,7 @@ def test_async_ba_matches_sync(rng):
         t_sync.process_features(feats, k)
         t_async.process_features(feats, k)
         gt.append(np.concatenate([R.T, (-R.T @ t)[:, None]], 1))
-    from visualslam_tpu.slam.evaluation import ate_rmse, centers_from_poses
+    from visualslam.slam.evaluation import ate_rmse, centers_from_poses
 
     gt = np.stack(gt)
     a_sync = ate_rmse(centers_from_poses(t_sync.trajectory()),
@@ -337,8 +337,8 @@ def test_tracker_distributed_window_ba(rng):
     """Tracker(mesh=...) runs the window BA trajectory-sharded across the
     CPU mesh; the trajectory must match the single-device tracker within
     solver tolerance."""
-    from visualslam_tpu.parallel.mesh import make_mesh
-    from visualslam_tpu.slam.evaluation import ate_rmse, centers_from_poses
+    from visualslam.parallel.mesh import make_mesh
+    from visualslam.slam.evaluation import ate_rmse, centers_from_poses
 
     cfg = CFG.replace(ba=CFG.ba.replace(max_cameras=8, cg_iters=48))
     scene = SyntheticScene(np.random.default_rng(5))
@@ -366,7 +366,7 @@ def test_tracker_100_frame_ate_regression(rng):
     test CFG (keyframe_max_gap=4, 6-camera window); bound chosen ~2x the
     measured ATE at introduction so real regressions fail, noise doesn't."""
     tracker, gt = run_sequence(rng, n_frames=100)
-    from visualslam_tpu.slam.evaluation import ate_rmse, centers_from_poses
+    from visualslam.slam.evaluation import ate_rmse, centers_from_poses
 
     ok = [f.tracking_ok for f in tracker.frames]
     assert np.mean(ok) > 0.97, "tracking lost"
@@ -384,7 +384,7 @@ def test_tracker_100_frame_ate_regression(rng):
 def test_orb_tracker_end_to_end():
     """ORB frontend through the fused tracker: bit-packed descriptors flow
     through the local map + hamming matching without dtype mishaps."""
-    from visualslam_tpu.io.kitti import SyntheticSequence
+    from visualslam.io.kitti import SyntheticSequence
 
     seq = SyntheticSequence(num_frames=10, h=120, w=160, n_dots=500)
     info = seq.info()

@@ -9,18 +9,18 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from visualslam_tpu.backend.ba import run_ba_jit
-from visualslam_tpu.parallel.collectives import (
+from visualslam.backend.ba import run_ba_jit
+from visualslam.parallel.collectives import (
     ring_all_gather,
     ring_reduce_scatter,
 )
-from visualslam_tpu.parallel.mesh import make_mesh
-from visualslam_tpu.parallel.traj_ba import (
+from visualslam.parallel.mesh import make_mesh
+from visualslam.parallel.traj_ba import (
     run_ba_traj_sharded,
     shard_problem_trajectory,
     unshard_traj,
 )
-from visualslam_tpu.utils.config import BAConfig
+from visualslam.utils.config import BAConfig
 
 from test_ba import make_ba_problem
 

@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.frontend import detect_and_describe_jit
-from visualslam_tpu.models.matching import match_features
-from visualslam_tpu.slam.two_view import two_view_from_features
-from visualslam_tpu.utils.config import DEFAULT_CONFIG
+from visualslam.frontend import detect_and_describe_jit
+from visualslam.models.matching import match_features
+from visualslam.slam.two_view import two_view_from_features
+from visualslam.utils.config import DEFAULT_CONFIG
 
 CFG = DEFAULT_CONFIG.replace(
     pyramid=DEFAULT_CONFIG.pyramid.replace(num_octaves=3),
@@ -48,8 +48,8 @@ def test_match_under_known_rotation(home):
 def test_two_view_synthetic_projections(rng):
     """Full two-view geometry from synthetic Features (bypasses detection):
     exact projections -> recovered pose matches GT."""
-    from visualslam_tpu.geometry import se3
-    from visualslam_tpu.models.types import Features, Keypoints
+    from visualslam.geometry import se3
+    from visualslam.models.types import Features, Keypoints
 
     n = 200
     X = rng.uniform([-2, -1.5, 4], [2, 1.5, 10], (n, 3))

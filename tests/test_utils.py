@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from visualslam_tpu.utils.config import (
+from visualslam.utils.config import (
     DEFAULT_CONFIG,
     FAST_CONFIG,
     PyramidConfig,
     SlamConfig,
 )
-from visualslam_tpu.utils.masked import (
+from visualslam.utils.masked import (
     block_top_k_select,
     compact,
     merge,
@@ -97,7 +97,7 @@ def test_merge_keeps_best():
 
 
 def test_debug_checked_catches_nan():
-    from visualslam_tpu.utils.debug import checked
+    from visualslam.utils.debug import checked
 
     def bad(x):
         return jnp.log(x)  # nan for negative input
@@ -108,7 +108,7 @@ def test_debug_checked_catches_nan():
 
 
 def test_stage_timer():
-    from visualslam_tpu.utils.profiling import StageTimer
+    from visualslam.utils.profiling import StageTimer
 
     t = StageTimer()
     with t.stage("a"):
